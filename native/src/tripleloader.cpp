@@ -1,4 +1,4 @@
-// tripleloader — native data loader for tpu-kge.
+// tripleloader — native data loader for skge_tpu.
 //
 // Parses whitespace/tab-separated knowledge-graph triple files (the raw
 // WN18/FB15k release format: one "<head> <relation> <tail>" line per triple),
@@ -6,7 +6,7 @@
 // framework's native-runtime equivalent of the reference's pickle-based data
 // path (SURVEY.md §2.2 "Datasets"); the reference itself has no native code
 // (SURVEY.md §2.3), so this is build-scope: a production loader feeding the
-// TPU input pipeline without Python string overhead.
+// device input pipeline without Python string overhead.
 //
 // Design: mmap the file, single linear scan, open-addressing hash table over
 // (offset, length) string views into the mapped buffer (no per-token

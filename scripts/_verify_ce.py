@@ -1,6 +1,6 @@
 """Verify driver: full cross-entropy loss end-to-end through the public API.
 
-Usage: python -u scripts/_verify_ce.py [cpu|tpu] [--sweep]
+Usage: python -u scripts/_verify_ce.py [cpu|gpu] [--sweep]
 Trains TransE with Trainer(loss='ce') on the selfadv A/B latent KG and
 prints per-config filtered MRR (same dataset/protocol as
 scripts/_verify_selfadv.py so the RESULTS.md loss A/B table is comparable).

@@ -1,6 +1,6 @@
 """Verify driver: N3 regularization A/B through the public API.
 
-Usage: python -u scripts/_verify_n3.py [cpu|tpu] [--sweep]
+Usage: python -u scripts/_verify_n3.py [cpu|gpu] [--sweep]
 Trains ComplEx with the full-CE loss (its canonical pairing — Lacroix et
 al. 2018) on the same latent KG / protocol as scripts/_verify_ce.py, at
 several n3 strengths, and prints filtered MRR per config (3 seeds).

@@ -1,6 +1,6 @@
 """Verify driver: self-adversarial loss end-to-end through the public API.
 
-Usage: python -u scripts/_verify_selfadv.py [cpu|tpu]
+Usage: python -u scripts/_verify_selfadv.py [cpu|gpu]
 Trains TransE with Trainer(loss='selfadv') on a latent KG, prints per-epoch
 loss and the final filtered MRR.
 """

@@ -1,4 +1,4 @@
-"""10^7-entity end-to-end flagship demo on one TPU chip (VERDICT r3 item 5).
+"""10^7-entity end-to-end flagship demo on one device (VERDICT r3 item 5).
 
 Composes the framework's scale pieces at the largest size this
 environment holds, with wall-clock per phase:

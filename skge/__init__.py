@@ -1,14 +1,14 @@
 """Drop-in `skge` namespace: reference user code runs unmodified.
 
 The upstream package is imported as `skge` (scikit-kge's skge/__init__.py);
-this shim maps that exact import surface onto the TPU-native implementation
+this shim maps that exact import surface onto the JAX implementation
 (skge_tpu.compat class API + the host-side sample/param/actfun/util
 modules), so
 
     from skge import HolE, PairwiseStochasticTrainer
     from skge import sample
 
-works verbatim while training runs on TPU. See skge_tpu/compat.py for the
+works verbatim while training runs on the accelerator. See skge_tpu/compat.py for the
 documented behavioral differences (pickle format, on-device epochs).
 """
 

@@ -1,6 +1,6 @@
-"""tpu-kge: TPU-native knowledge-graph-embedding framework.
+"""skge_tpu: a knowledge-graph-embedding framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-architecture of the capabilities of
+A from-scratch JAX/XLA re-architecture of the capabilities of
 unmeshvrije/scikit-kge (blueprint: SURVEY.md). Functional core:
 
     from skge_tpu import HolE, AdaGrad, training, sampling, evaluation

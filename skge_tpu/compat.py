@@ -1,4 +1,4 @@
-"""scikit-kge-compatible class surface on top of the TPU functional core.
+"""scikit-kge-compatible class surface on top of the JAX functional core.
 
 A user of the reference (skge/base.py Model/trainers) can switch with
 near-identical code (SURVEY.md §1 data flow):
@@ -15,7 +15,7 @@ near-identical code (SURVEY.md §1 data flow):
     model.save("model.bin")
 
 Differences from the reference (all documented):
-- training runs on TPU via jitted scans; when `samplef` is one of
+- training runs on the accelerator via jitted scans; when `samplef` is one of
   `skge_tpu.sample`'s samplers (or None) the whole epoch runs on-device;
   an arbitrary Python callable falls back to a host loop calling the jitted
   update per batch (slower but fully compatible);

@@ -557,7 +557,7 @@ def add_reciprocal_relations(ds: Dataset) -> Dataset:
 # Edge partitioning (SURVEY.md §5 "long-context equivalent"): assign entities
 # to P parts and triples to their subject's part so most row lookups in a
 # partition-aligned distributed step are shard-local; the remainder is the
-# "boundary" exchanged over ICI (parallel/partitioned.py).
+# "boundary" exchanged over the interconnect (parallel/partitioned.py).
 # ---------------------------------------------------------------------------
 
 def greedy_entity_partition(

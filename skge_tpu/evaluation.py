@@ -10,8 +10,8 @@ constant-score degenerate models); `ties='optimistic'` reproduces the
 reference's 1 + #(strictly greater) [M — its argsort order on exact ties is
 unspecified; ties are measure-zero for continuous scores].
 
-TPU design: the all-entity sweep is each model's `score_all_*` — one MXU
-matmul per batch (SURVEY.md §3.4 "on TPU this becomes a sharded matmul").
+Design: the all-entity sweep is each model's `score_all_*` — one
+matmul per batch (SURVEY.md §3.4; a sharded matmul on a mesh).
 Known-true filtering avoids materializing (n_test, n_e) boolean masks: the
 host precomputes, once per eval set, a flat (row, entity) pair list per test
 batch (padded to a static width), and the device scatters -inf at those pairs
@@ -131,9 +131,9 @@ def ranking_scores(
 
 
 # jit caches per wrapped-function OBJECT, so constructing a fresh
-# FilteredRankingEval used to recompile both direction kernels every time —
-# ~30-60 s each on the remote TPU, which dominated quality_suite's sweep /
-# early-stopping loops (one evaluator per validation pass). Models are
+# FilteredRankingEval used to recompile both direction kernels every time,
+# which dominated quality_suite's sweep / early-stopping loops (one
+# evaluator per validation pass). Models are
 # frozen VALUE-hashable dataclasses, so the jitted kernel is reusable
 # whenever (model, direction, ties) match; mesh- or mask-carrying kernels
 # (partitioned eval) are rarer and long-lived, so they skip the cache.
@@ -185,8 +185,7 @@ def _build_rank_kernel(
     ENTITIES on the mesh's `axis` (the same axis the entity table is
     row-sharded on by parallel.shard_state): every device scores only its
     slice of the entity vocabulary and the per-row strictly-greater counts
-    reduce across shards — SURVEY.md §3.4's "on TPU this becomes a sharded
-    matmul". The filter scatter and the rank reduction stay inside the same
+    reduce across shards — SURVEY.md §3.4's sharded matmul. The filter scatter and the rank reduction stay inside the same
     jitted program, so GSPMD keeps them on the column shards.
     """
     if ties not in ("mean", "optimistic"):

@@ -436,7 +436,7 @@ class Experiment:
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="TPU-native KGE training/evaluation (scikit-kge capabilities)"
+        description="KGE training/evaluation in JAX (scikit-kge capabilities)"
     )
     p.add_argument("--fin", default=None, help="dataset pickle (reference format)")
     p.add_argument("--tsv", nargs=3, default=None,
@@ -469,9 +469,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--k", type=int, default=1024,
                    help="shared-pool size (--sampler shared)")
     p.add_argument("--aggregate", default="unique",
-                   choices=["unique", "dense", "dense_pallas", "dense_sorted"],
-                   help="gradient aggregation backend (dense_pallas = "
-                   "single-chip Pallas scatter kernel)")
+                   choices=["unique", "dense", "dense_sorted"],
+                   help="gradient aggregation backend (dense = XLA "
+                   "scatter into the full table, dense_sorted = sort + "
+                   "banded one-hot matmul)")
     p.add_argument("--mode", default="rank", choices=["rank", "none"])
     p.add_argument("--no-pairwise", action="store_true",
                    help="use pointwise logistic loss")
@@ -533,10 +534,16 @@ def main(argv=None) -> int:
         level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s"
     )
     args = make_parser().parse_args(argv)
-    if args.cpu:
-        import jax
+    import jax
 
+    from skge_tpu.utils.compile_cache import enable_compile_cache
+
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    log.info("platform %s (%s), %d device(s)", dev.platform,
+             dev.device_kind, len(jax.devices()))
     result = Experiment(args).run()
     print(result)
     return 0

@@ -1,4 +1,4 @@
-"""Model abstraction for TPU-native KGE.
+"""Model abstraction for KGE models.
 
 Unlike the reference's mutable `Model` class with in-place NumPy parameters
 (skge/base.py ~30), models here are FROZEN hyperparameter dataclasses;
@@ -15,7 +15,7 @@ functional train steps. A model contributes:
 - `score_from_rows(rows, dense)` — pure scoring from gathered rows; the ONLY
   model-specific compute in the training hot path.
 - `score_all_o` / `score_all_s` — all-entity scoring for filtered ranking
-  evaluation, written as MXU matmuls (SURVEY.md §3.4).
+  evaluation, written as matmuls (SURVEY.md §3.4).
 
 Triple role convention everywhere: columns (s, o, p) — subject, object,
 predicate — matching the reference's unzip_triples order (skge/util.py ~50).
@@ -64,13 +64,13 @@ def activation(name: str) -> Callable[[jnp.ndarray], jnp.ndarray]:
 
 
 def acc_dtype(x: jnp.ndarray):
-    """MXU accumulation dtype: at least float32, but never truncate float64
+    """Matmul accumulation dtype: at least float32, but never truncate float64
     (parity tests run in x64)."""
     return jnp.promote_types(x.dtype, jnp.float32)
 
 
 def mxu_dot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Matmul with explicit fp32+ accumulation for the MXU."""
+    """Matmul with explicit fp32+ accumulation."""
     return jnp.dot(a, b, preferred_element_type=acc_dtype(a))
 
 
@@ -98,13 +98,14 @@ class KGEModel:
     sz convention matches the reference: (n_entities, n_entities,
     n_relations) — SURVEY.md §1.
 
-    `compute_dtype` (default: same as `dtype`) sets the MXU input precision
-    for the batched scoring matmuls (pool/all-entity sweeps): parameters
-    and the optimizer stay in `dtype`, only the dot inputs are cast, and
+    `compute_dtype` (default: same as `dtype`) sets the input precision of
+    the batched scoring matmuls (pool/all-entity sweeps): parameters and
+    the optimizer stay in `dtype`, only the dot inputs are cast, and
     accumulation is always >= fp32. 'bfloat16' trades ~3 decimal digits of
-    score precision for single-pass MXU throughput (fp32 matmuls run as
-    3-pass bf16x3 on TPU) — an opt-in production mode; parity tests use the
-    exact default.
+    score precision for half the operand bytes — an opt-in production
+    mode. With the float32 default, the GPU may still run the dots in
+    TF32 (~3 decimal digits) unless `jax.default_matmul_precision(
+    'highest')` is set; parity tests and references set it.
     """
 
     n_entities: int
@@ -201,7 +202,7 @@ class KGEModel:
         of each positive — the shared-negative-pool training scheme
         (PBG/DGL-KE style; no reference counterpart, build-scope per
         BASELINE.md). This generic fallback vmaps `score_from_rows` over the
-        pool; TransE/HolE/RESCAL override it with an MXU matmul against a
+        pool; TransE/HolE/RESCAL override it with an matmul against a
         (B, d) query (the same algebra as their `score_all_*` eval paths).
         """
         role = {0: "s", 1: "o"}[mode]

@@ -5,7 +5,7 @@ DistMult: it is the asymmetric-relation completion of DistMult and the
 standard strong baseline in production KGE systems (DGL-KE, PBG —
 PAPERS.md). score = Re(<R[p], E[s], conj(E[o])>) over C^d.
 
-TPU design: complex rows are stored as REAL (n, 2d) tables — first half
+Design: complex rows are stored as REAL (n, 2d) tables — first half
 real part, second half imaginary — so gathers, the sparse optimizer, and
 the gradient scatters reuse the same fp32 row machinery as every other
 model (no complex dtype on the scatter/AdaGrad path). Writing
@@ -16,7 +16,7 @@ es = (a, b), rp = (c, d), eo = (e, f):
           = q(mode=0) . es_real,   q = (ce + df, cf - de)
 
 so pool scoring and the all-entity eval sweep are a (B, 2d) query times one
-MXU matmul against the real-layout table, exactly like DistMult/HolE.
+matmul against the real-layout table, exactly like DistMult/HolE.
 """
 
 from __future__ import annotations

@@ -14,10 +14,10 @@ and three dropouts — training-scheme choices (like TuckER's), not part of
 the scoring function, and omitted here (AdaGrad + optional `rparam` L2
 take their place).
 
-TPU design:
-- The convolution lowers to MXU im2col matmuls under XLA; the FC
-  projection and both candidate sweeps are single (B, ·) x (·, N) MXU
-  matmuls. All shapes are static.
+Design:
+- The convolution lowers to XLA's convolution; the FC projection and
+  both candidate sweeps are single (B, ·) x (·, N) matmuls. All shapes
+  are static.
 - The per-entity output bias is FOLDED into the entity table as an extra
   trailing column: `E` is (n_e, d+1), subjects read columns [:d],
   objects contribute e_o = E[o, :d] and b_o = E[o, d] via one gather.
@@ -190,12 +190,12 @@ class ConvE(KGEModel):
             return self.score_all_o(params, o, self._inv(p))
         # Non-reciprocal subject sweep (round 4, de-gated round 5):
         # hidden() is a function of (candidate, p), so candidates cannot
-        # ride one matmul the way score_all_o's do. The TPU-shaped
+        # ride one matmul the way score_all_o's do. The matmul-shaped
         # factoring is BY RELATION: build the candidate hidden table
         # H_r = hidden(E, r) (n_e, d) once per DISTINCT batch relation —
         # entity-chunked lax.scan keeps the conv activations bounded at
         # (chunk, nfilters, oh, ow) — then every query row with relation r
-        # is one (B, d) x (d, n_e) MXU dot against H_r. The scan iterates
+        # is one (B, d) x (d, n_e) dot against H_r. The scan iterates
         # the batch's unique relations (sort + first-occurrence compaction,
         # static trip count min(B, n_r); padding slots carry sentinel -1
         # and lax.cond skips them at runtime), so cost is

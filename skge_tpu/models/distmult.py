@@ -5,8 +5,8 @@ SURVEY.md §2.1), added because production KGE frameworks (DGL-KE, PBG —
 PAPERS.md) treat it as a baseline family. score = sum(E[s] * R[p] * E[o]):
 RESCAL with W_p restricted to a diagonal, so everything stays a vector op.
 
-TPU design: training scores are one fused elementwise-reduce (VPU); pool
-and all-entity sweeps contract to a (B, d) query followed by one MXU
+Design: training scores are one fused elementwise-reduce; pool
+and all-entity sweeps contract to a (B, d) query followed by one
 matmul — identical structure to HolE's adjoint-identity path.
 """
 

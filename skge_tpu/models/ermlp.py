@@ -5,7 +5,7 @@ score = C . af(W^T [e_s; e_o; r_p]) with W (3d, nhidden), C (nhidden,),
 af=sigmoid by default. Dense params W/C take the masked mean batch gradient
 (choice documented in tests/oracle/oracle_numpy.py).
 
-TPU design: the hidden layer is one (B, 3d) x (3d, nh) MXU matmul. For
+Design: the hidden layer is one (B, 3d) x (3d, nh) matmul. For
 all-entity eval the concat structure is exploited: W splits into row blocks
 (W_s, W_o, W_r), the (n_e, nh) product E @ W_o is computed ONCE per call, and
 per-query pre-activations are a rank-1 broadcast add, chunked over entities.

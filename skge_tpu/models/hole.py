@@ -4,11 +4,11 @@ Reference: skge/hole.py (SURVEY.md §2.1 #8). score = sum(R[p] * ccorr(E[s],
 E[o])). Pairwise training applies sigmoid to scores BEFORE the margin test.
 L2 regularization `rparam` added per touched unique row.
 
-TPU design: ccorr via batched rfft/irfft (half-spectrum, fused elementwise
+Design: ccorr via batched rfft/irfft (half-spectrum, fused elementwise
 product). All-entity eval scoring uses the adjoint identities
     score(s, p, .) = E @ cconv(e_s, r_p)      (object side)
     score(., o, p) = E @ ccorr(r_p, e_o)      (subject side)
-turning the n_test x n_e sweep into a single MXU matmul (SURVEY.md §3.4).
+turning the n_test x n_e sweep into a single matmul (SURVEY.md §3.4).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ class HolE(KGEModel):
         return jnp.sum(rows["rp"] * ccorr(rows["es"], rows["eo"]), axis=-1)
 
     def score_pool(self, rows, pool_rows, dense, mode):
-        """(B, K) pool scores via the adjoint identities — one MXU matmul.
+        """(B, K) pool scores via the adjoint identities — one matmul.
 
         mode 1: score(s, e_k, p) = e_k . cconv(es, rp);
         mode 0: score(e_k, o, p) = e_k . ccorr(rp, eo).

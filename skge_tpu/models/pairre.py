@@ -12,10 +12,10 @@ inverse, compositional AND subrelation patterns while keeping entity
 rows on the unit ball (the reference's `normless1` constraint, applied
 to touched rows post-update like TransE).
 
-TPU design: the two scales live in ONE (n_r, 2d) row table `R` (halves
+Design: the two scales live in ONE (n_r, 2d) row table `R` (halves
 [r^H | r^T]) — one gather, one fused scatter, one AdaGrad accumulator.
 The squared-L2 form (the paper uses L1; same trade documented for
-RotatE) expands so both corruption directions are TWO MXU matmuls
+RotatE) expands so both corruption directions are TWO matmuls
 against the candidate table: with fixed query a = e_s ∘ r^H (mode 1),
 
     ||a - e ∘ r^T||^2 = |a|^2 - 2 (a ∘ r^T) . e + (r^T ∘ r^T) . (e ∘ e)

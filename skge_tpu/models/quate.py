@@ -9,12 +9,12 @@ plane (which it contains as the b=c=0 special case):
 
     score(s, o, p) = < q_s ⊗ r̂_p , q_o >        r̂ = r / |r| per component
 
-TPU design: quaternion rows live in ONE real (n, 4d) table (component
+Design: quaternion rows live in ONE real (n, 4d) table (component
 blocks [a | b | c | d]) so the gather/scatter/AdaGrad row machinery is
 identical to every other model; the relation is normalized INSIDE scoring
 (differentiable, exactly unit at every use — same device as TransH's
-hyperplane normal). The Hamilton product is 16 fused VPU multiplies; both
-corruption directions then reduce to ONE MXU matmul against the candidate
+hyperplane normal). The Hamilton product is 16 fused elementwise multiplies; both
+corruption directions then reduce to ONE matmul against the candidate
 table via the quaternion inner-product adjoint
 
     < p ⊗ q , s > = < p , s ⊗ q̄ >

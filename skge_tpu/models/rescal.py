@@ -5,10 +5,10 @@ Reference: skge/rescal.py (SURVEY.md §2.1 #7). score = e_s^T W_p e_o with W a
 supported. Pairwise margin test on raw scores ([M] — documented sigmoid only
 for HolE; mirrors tests/oracle/oracle_numpy.py).
 
-TPU design: the batched bilinear form is one einsum -> two batched MXU
+Design: the batched bilinear form is one einsum -> two batched
 matmuls; the reference's per-unique-relation Python loop disappears into the
 duplicate-index segment averaging shared by all models. All-entity eval
-scoring: q = e_s @ W_p (batched matmul), then q @ E^T (one big MXU matmul).
+scoring: q = e_s @ W_p (batched matmul), then q @ E^T (one big matmul).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ class RESCAL(KGEModel):
     reg_row_params = ("E", "W")
     # shared-pool W cotangents are rank-1 per pair: training dispatches to
     # the hand-derived factored gradient path (training.py
-    # pairwise_grads_shared_bilinear + ops/pallas_outer.py)
+    # pairwise_grads_shared_bilinear + aggregate.segment_outer_mean_dense)
     factored_pool_grads = True
 
     def slot_spec(self):
@@ -54,7 +54,7 @@ class RESCAL(KGEModel):
 
     def score_pool(self, rows, pool_rows, dense, mode):
         """(B, K) pool scores: contract the bilinear form down to a (B, d)
-        query (es^T W_p for mode 1, W_p e_o for mode 0), then one MXU matmul
+        query (es^T W_p for mode 1, W_p e_o for mode 0), then one matmul
         against the pool."""
         if mode == 1:
             q = jnp.einsum(

@@ -8,7 +8,7 @@ and bilinear forms (DistMult) cannot all express at once.
 
     score(s, o, p) = -|| E[s] ∘ r_p - E[o] ||^2,   r_p = exp(i * theta_p)
 
-TPU design: entity rows are REAL (n_e, 2d) complex-layout tables (first
+Design: entity rows are REAL (n_e, 2d) complex-layout tables (first
 half real, second half imaginary — same fp32 row machinery as ComplEx
 for gathers/scatters/AdaGrad); relations store the (n_r, d) PHASES
 theta, so |r_p| = 1 holds by construction (no post-constraint needed)
@@ -21,10 +21,10 @@ between a rotated (B, 2d) query and the candidate table:
     mode 0 (corrupt s):  -|| rot(e_o, -theta) - cand ||^2
 
 and the norm expansion ||q - e||^2 = |q|^2 - 2 q.e + |e|^2 turns pool
-scoring and the all-entity eval sweep into ONE MXU matmul (identical
-algebra to TransE-L2's eval trick). The squared-L2 form is the
-TPU-first choice (the paper's modulus-L1 variant would broadcast a
-(B, K, d) complex-modulus tensor through the VPU like TransE-L1).
+scoring and the all-entity eval sweep into ONE matmul (identical
+algebra to TransE-L2's eval trick). The squared-L2 form is chosen for
+that (the paper's modulus-L1 variant would broadcast a (B, K, d)
+complex-modulus tensor like TransE-L1).
 """
 
 from __future__ import annotations

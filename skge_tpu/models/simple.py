@@ -13,11 +13,11 @@ forward and an inverse vector. SimplE is fully expressive (any ±1 tensor
 is representable at large enough rank) while keeping DistMult's
 multiplicative cost.
 
-TPU design: head/tail live in ONE (n_e, 2d) row table `E` (first half
+Design: head/tail live in ONE (n_e, 2d) row table `E` (first half
 head, second half tail) and forward/inverse in one (n_r, 2d) table `R`
 — a single fp32 row per entity/relation keeps the gather/scatter/AdaGrad
 machinery identical to every other model (one fused table scatter, one
-accumulator). Both corruption directions reduce to ONE MXU matmul
+accumulator). Both corruption directions reduce to ONE matmul
 against the candidate table: the two trilinear terms are linear in the
 candidate's (head|tail) halves, so a (B, 2d) query contracts them in a
 single dot —

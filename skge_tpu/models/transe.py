@@ -7,8 +7,8 @@ each update to touched rows only. Pairwise-only in the reference (no
 pointwise `_gradients`); here the generic logistic path works too but the
 compat layer mirrors the reference restriction.
 
-TPU design: training scores are a fused gather + elementwise reduce (VPU);
-all-entity eval scoring uses the |q - E| trick — for L2 it is a single MXU
+Design: training scores are a fused gather + elementwise reduce;
+all-entity eval scoring uses the |q - E| trick — for L2 it is a single
 matmul via ||q-e||^2 = |q|^2 - 2 q.e + |e|^2; for L1 it is an entity-chunked
 broadcast reduce to bound memory.
 """
@@ -51,7 +51,7 @@ class TransE(KGEModel):
     def _score_all(self, E: jnp.ndarray, q: jnp.ndarray, sign: float) -> jnp.ndarray:
         """Scores -||q[b] + sign*E[e]|| for all e; q: (B, d)."""
         if not self.l1:
-            # ||q + s*e||^2 = |q|^2 + 2 s q.e + |e|^2 -> one MXU matmul.
+            # ||q + s*e||^2 = |q|^2 + 2 s q.e + |e|^2 -> one matmul.
             qn = jnp.sum(q * q, axis=-1, keepdims=True)
             en = jnp.sum(E * E, axis=-1)[None, :]
             cross = 2.0 * sign * self.mxu(q, E.T)
@@ -76,7 +76,7 @@ class TransE(KGEModel):
         """(B, K) distances to the shared negative pool.
 
         mode 1: -||(es + rp) - e_k||; mode 0: -||e_k - (eo - rp)|| — both are
-        distances between a (B, d) query and the pool. L2 rides the MXU via
+        distances between a (B, d) query and the pool. L2 is a matmul via
         the norm expansion; L1 chunks the pool to bound the (B, Kc, d)
         broadcast and recomputes it in the backward pass (jax.checkpoint) so
         the full (B, K, d) sign tensor is never materialized.

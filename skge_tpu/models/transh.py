@@ -14,13 +14,13 @@ The normal is normalized INSIDE scoring (w / max(|w|, eps)) rather than by
 a post-update projection — differentiable, and exactly unit at every use.
 Entity rows keep TransE's `normless1` ball constraint.
 
-TPU design: the training score is a fused elementwise reduce (VPU). Pool
+Design: the training score is a fused elementwise reduce. Pool
 and all-entity sweeps expand the square: with q the projected query and
 |w| = 1,
 
     ||q -/+ proj(e)||^2 = |q|^2 -/+ 2 (q.e - (w.e)(q.w)) + |e|^2 - (w.e)^2
 
-so a sweep is exactly TWO MXU matmuls against the candidate table (q.E^T
+so a sweep is exactly TWO matmuls against the candidate table (q.E^T
 and w.E^T) plus rank-1 broadcasts — same structure as TransE-L2's single
 matmul, one extra for the hyperplane component.
 """

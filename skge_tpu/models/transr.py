@@ -11,13 +11,13 @@ row-indexed parameter like RESCAL's W. M initializes to the identity (the
 paper's choice: start as TransE), entity and relation rows keep the
 `normless1` ball constraint.
 
-TPU design: training scores are two batched MXU matmuls (project s and o)
+Design: training scores are two batched matmuls (project s and o)
 plus an elementwise reduce. Candidate sweeps (pool / all-entity) are
 inherently O(B * N * rcomp * ncomp) FLOPs — every candidate must pass
 through every query's per-relation projection; that FLOP count is intrinsic
 to TransR's form. What is NOT intrinsic is the shape those FLOPs take, and
-the default sweep (`sweep='quadratic'`) reshapes them onto the MXU by
-expanding the square:
+the default sweep (`sweep='quadratic'`) reshapes them into large matmuls
+by expanding the square:
 
     -||q_b - M_b e_k||^2
         = -( ||q_b||^2  -  2 (M_b^T q_b) . e_k  +  vec(M_b^T M_b) . vec(e_k e_k^T) )
@@ -25,24 +25,19 @@ expanding the square:
 so the whole (B, N) sweep becomes ONE (B, d) x (d, N) matmul (cross term)
 plus ONE (B, d^2) x (d^2, N) matmul (quadratic term) — large, statically
 shaped, contraction dim d^2 — instead of B independent (rcomp, ncomp)
-matvecs per candidate chunk. Same FLOPs, near-peak MXU utilization: the
-quadratic-term matmul runs at ~139 TF/s on a v5e (222 GFLOP in 1.6 ms,
-profiler-measured) where the per-triple chunked form took 70+ ms
-(`sweep='direct'` preserves that definitional form for fp64 parity
-pinning). End-to-end the exact full-rank train step lands at ~2.6x the
-round-2 number; the residue is NOT the sweep but the per-triple (B, d, d)
-projection-row traffic — gather, dM transposes, duplicate-averaged
-aggregation — which is intrinsic to full-rank per-relation projections
-under reference gradient semantics (roofline discussion: RESULTS.md).
+matvecs per candidate chunk. Same FLOPs, in the shape matrix units run
+fastest (`sweep='direct'` preserves the definitional per-triple form for
+fp64 parity pinning). What remains of the full-rank step's cost is the
+per-triple (B, d, d) projection-row traffic — gather, dM transposes,
+duplicate-averaged aggregation — which is intrinsic to full-rank
+per-relation projections under reference gradient semantics.
 
 `factored=True` removes that intrinsic cost by construction: M_p = I +
 u_p v_p^T (rank-1 perturbation of the identity, the TransD (Ji et al.,
 ACL 2015) parameterization restricted to one shared projection per
 relation). Projection rows are two (d,) vectors instead of one (d, d)
 matrix, every sweep term is a rank-1-corrected (B, d) x (d, N) matmul,
-and the step runs at TransH-class speed (measured 17.2 G scored triples/s
-on the v5e bench shape — 86x the full-rank round-2 number, 33x the exact
-full-rank path after its own optimization). u initializes to 0 (M = I:
+and the step does TransH-class work. u initializes to 0 (M = I:
 exactly the paper's identity start), v to `init`.
 """
 
@@ -59,7 +54,7 @@ from skge_tpu.models.base import INITIALIZERS, KGEModel, Params, acc_dtype
 @dataclass(frozen=True)
 class TransR(KGEModel):
     rcomp: int = 0  # relation-space dim; 0 = same as ncomp
-    # candidate-sweep algorithm: 'quadratic' (default — expanded-square MXU
+    # candidate-sweep algorithm: 'quadratic' (default — expanded-square
     # matmuls, see module docstring) or 'direct' (per-triple batched
     # projections; the definitional form kept for fp64 parity pinning).
     sweep: str = "quadratic"
@@ -128,7 +123,7 @@ class TransR(KGEModel):
         """-||q - (I + u v^T) c||^2 for every candidate c, per query.
 
         Expansion (t = v . c): q2 + c2 + t^2 u2 - 2 q.c - 2 t q.u + 2 t c.u
-        — three (B, d) x (d, N) MXU matmuls (vc, uc shared across modes)
+        — three (B, d) x (d, N) matmuls (vc, uc shared across modes)
         plus rank-1 elementwise assembly. No (d, d) anything anywhere.
         """
         vc = self.mxu(v, cand.T)                     # (B, N)
@@ -154,10 +149,9 @@ class TransR(KGEModel):
             return -jnp.sum(d * d, axis=-1)
         # ONE projection of the difference, not two: M(e_s - e_o) + r ==
         # (M e_s + r) - M e_o exactly in real arithmetic, and the batched
-        # (d, d) matvecs here are overhead-bound on TPU (~1 ms each at the
-        # FB15k shape for 0.2 GFLOP), so halving their count matters more
-        # than any FLOP accounting. fp64 parity tests bound the
-        # reassociation difference (~1e-13).
+        # (d, d) matvecs here are small and overhead-bound, so halving
+        # their count matters more than any FLOP accounting. fp64 parity
+        # tests bound the reassociation difference (~1e-13).
         d = self._project(rows["mp"], rows["es"] - rows["eo"]) + rows["rp"]
         return -jnp.sum(d * d, axis=-1)
 
@@ -168,8 +162,8 @@ class TransR(KGEModel):
         return self._sweep_direct(q, m, cand)
 
     def _sweep_direct(self, q, m, cand):
-        """Definitional form: per-triple batched projections (slow on MXU —
-        B independent (rcomp, ncomp) x (ncomp, chunk) matvec-ish tiles)."""
+        """Definitional form: per-triple batched projections (slow — B
+        independent (rcomp, ncomp) x (ncomp, chunk) matvec-ish tiles)."""
         n = cand.shape[0]
         chunk = max(1, min(n, 128))
         pad = (-n) % chunk
@@ -192,16 +186,16 @@ class TransR(KGEModel):
         return self._sweep_quadratic_multi((q,), m, cand)[0]
 
     def _sweep_quadratic_multi(self, qs, m, cand):
-        """Expanded-square form: the (B, N) sweep as two large MXU matmuls.
+        """Expanded-square form: the (B, N) sweep as two large matmuls.
 
         -||q - Me||^2 = 2 (M^T q).e - vec(M^T M).vec(e e^T) - ||q||^2.
         The Gram tensor G_b = M_b^T M_b (B, ncomp, ncomp) flattens to a
         (B, d^2) matrix so the quadratic term is one statically-shaped
         (B, d^2) x (d^2, chunk) matmul against candidate self-outer-products
-        — contraction dim d^2, exactly what the systolic array wants. (A
-        d(d+1)/2 symmetric packing was tried and measured 260x SLOWER on a
-        v5e: the triu gathers defeat fusion and tile alignment; the 2x FLOP
-        saving never materializes. Keep the dense d^2 form.)
+        — contraction dim d^2, a large dense matmul. (A d(d+1)/2 symmetric
+        packing was tried and was far slower: the triu gathers defeat
+        fusion and tile alignment; the 2x FLOP saving never materializes.
+        Keep the dense d^2 form.)
 
         The quadratic term is independent of the query — identical for every
         corruption mode — so this multi-query form computes it (and, via

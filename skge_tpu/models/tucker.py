@@ -16,13 +16,13 @@ RESCAL. The original trains with batch-norm + dropout + Adam; those are
 training-scheme choices, not part of the scoring function — here it rides
 the same AdaGrad/pairwise/pointwise harness as every other model.
 
-TPU design: the mixed bilinear form contracts core-first — one (B, rcomp)
-x (rcomp, ncomp^2) MXU matmul builds all per-triple M_p, then two batched
+Design: the mixed bilinear form contracts core-first — one (B, rcomp)
+x (rcomp, ncomp^2) matmul builds all per-triple M_p, then two batched
 matmuls score. Pool and all-entity sweeps contract the query side first
-(q = e^T M_p, a batched matvec), so the sweep is ONE (B, d) x (d, N) MXU
+(q = e^T M_p, a batched matvec), so the sweep is ONE (B, d) x (d, N)
 matmul — same shape as RESCAL's eval path. The (B, d, d) M transient is
-the dominant memory term: ~B * ncomp^2 * 4 bytes (92 MB at B=4096,
-d=150), well inside v5e HBM.
+the dominant memory term: ~B * ncomp^2 * 4 bytes (368 MB at B=4096,
+d=150).
 
 Init: rows use the model's `init` (nunif default); the core uses nunif
 over its (rcomp, ncomp^2) flattening (the paper's U(-1, 1) core assumes

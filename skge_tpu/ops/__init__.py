@@ -1,4 +1,4 @@
-"""Numeric primitives: circular correlation, gradient aggregation, kernels."""
+"""Numeric primitives: circular correlation, gradient aggregation."""
 
 from skge_tpu.ops.circulant import ccorr, cconv
 from skge_tpu.ops.aggregate import (
@@ -7,7 +7,6 @@ from skge_tpu.ops.aggregate import (
     segment_mean_dense,
     segment_mean_unique,
 )
-from skge_tpu.ops.pallas_segment import segment_sum_pallas
 
 __all__ = [
     "ccorr",
@@ -16,5 +15,4 @@ __all__ = [
     "UniqueGrads",
     "segment_mean_dense",
     "segment_mean_unique",
-    "segment_sum_pallas",
 ]

@@ -6,15 +6,15 @@ count), not summed. Rows touched only by masked-out occurrences (padding or
 non-violating pairs) must receive NO update at all — no AdaGrad accumulation
 and no post-constraint projection.
 
-Two TPU-native implementations:
+Two implementations:
 
 - `segment_mean_unique`: batch-local. Sort-based `jnp.unique(size=T)` over
   the static-size occurrence list, then `segment_sum`. Touches only O(batch)
-  rows; this is the scalable path for HBM-resident tables (no dense
+  rows; this is the scalable path for device-resident tables (no dense
   table-sized temporaries).
 - `segment_mean_dense`: scatter-adds into full-table accumulators. Simpler
   for XLA SPMD when the table is row-sharded across a mesh (the scatter and
-  the division stay sharded); used by the multi-chip path.
+  the division stay sharded); used by the multi-device path.
 
 Both return enough information for a sparse optimizer update that exactly
 matches the reference's "filter violations first, then average" order.
@@ -59,11 +59,9 @@ class FactoredOcc(NamedTuple):
     outer products `sum_f us[f][t] (x) vs[f][t]` of a matrix-valued
     parameter row (RESCAL's W: rank 2 — `es (x) dq + dr (x) eo`).
 
-    Stored factored so aggregation never materializes the (T, d, d)
-    per-occurrence tensor: the pallas kernel (ops/pallas_outer.py)
-    accumulates all rank terms into the VMEM-resident table in ONE dynamic
-    read-modify-write per occurrence, and the XLA fallback materializes the
-    summed outer only inside the fused scatter.
+    Stored factored so the (T, d, d) per-occurrence tensor is formed only
+    where it is consumed: `segment_outer_mean_dense` builds the summed
+    outer product as the update operand of one scatter-add.
 
     idx:    (T,) int row ids (>= num_rows = dropped padding).
     us, vs: tuples of (T, d) left/right factors, one pair per rank term.
@@ -120,40 +118,23 @@ def segment_mean_unique(
     return UniqueGrads(uidx=uidx, grads=gavg, count=count)
 
 
-def segment_outer_mean_dense(
-    occ: FactoredOcc,
-    num_rows: int,
-    backend: str = "xla",
-) -> DenseGrads:
+def segment_outer_mean_dense(occ: FactoredOcc, num_rows: int) -> DenseGrads:
     """`segment_mean_dense` for factored rank-1 occurrence gradients.
 
     Sums `u[t] (x) v[t]` into the (num_rows, d, d) table by `occ.idx` and
-    divides by the summed occurrence counts. backend='pallas' streams the
-    factors through the VMEM-resident outer-product kernel — the (T, d, d)
-    intermediate never exists; 'xla' materializes the outers inside one
-    fused scatter-add (CPU / SPMD / doesn't-fit-VMEM fallback).
+    divides by the summed occurrence counts.
     """
     t, d = occ.us[0].shape
     dt = occ.us[0].dtype
-    if backend == "pallas":
-        from skge_tpu.ops.pallas_outer import (
-            fits_in_vmem_outer, segment_outer_sum_pallas,
-        )
-
-        if dt == jnp.float32 and fits_in_vmem_outer(num_rows, d):
-            gsum = segment_outer_sum_pallas(occ.idx, occ.us, occ.vs, num_rows)
-        else:
-            backend = "xla"
-    if backend == "xla":
-        outers = sum(
-            u[:, :, None] * v[:, None, :] for u, v in zip(occ.us, occ.vs)
-        ).reshape(t, -1)
-        gsum = (
-            jnp.zeros((num_rows, d * d), dt)
-            .at[occ.idx]
-            .add(outers, mode="drop")
-            .reshape(num_rows, d, d)
-        )
+    outers = sum(
+        u[:, :, None] * v[:, None, :] for u, v in zip(occ.us, occ.vs)
+    ).reshape(t, -1)
+    gsum = (
+        jnp.zeros((num_rows, d * d), dt)
+        .at[occ.idx]
+        .add(outers, mode="drop")
+        .reshape(num_rows, d, d)
+    )
     count = jnp.zeros((num_rows,), dt).at[occ.idx].add(
         occ.count.astype(dt), mode="drop"
     )
@@ -172,62 +153,33 @@ def segment_mean_dense(
     """Same semantics as `segment_mean_unique` but into full-table arrays.
 
     Gradients and occurrence counts are scattered in ONE fused scatter-add
-    (counts ride as an extra trailing channel) — scatters dominate the train
-    step on TPU, so halving their number matters.
+    (counts ride as an extra trailing channel), so each table takes one
+    scatter instead of two.
 
-    backend='pallas' routes the scatter through the hand-rolled
-    VMEM-resident kernel (ops/pallas_segment.py; ~1.35x over the XLA
-    scatter at FB15k shapes) when the table fits VMEM and dtype is fp32;
-    otherwise it falls back to XLA transparently. The pallas path is
-    single-device (the kernel owns the whole table) — use 'xla' under SPMD.
+    backend='xla' is XLA's scatter-add; 'sorted' is the sort + banded
+    one-hot matmul of ops/sorted_segment.py (float32 only; other dtypes
+    take the scatter).
     """
+    if backend not in ("xla", "sorted"):
+        raise ValueError(f"unknown segment backend {backend!r}")
     g = grads if premasked else grads * _bmask(mask, grads.ndim).astype(grads.dtype)
     t = indices.shape[0]
     feat_shape = grads.shape[1:]
     flat = g.reshape(t, -1)
+    sorted_ok = backend == "sorted" and flat.dtype == jnp.float32
     if flat.shape[1] >= _WIDE_ROW_THRESHOLD:
         # wide rows (e.g. RESCAL's (d, d) relation slices): the fused count
-        # channel would materialize a full (T, F+1) concat copy that costs
-        # more than the second scatter it saves — measured 1.85x slower at
-        # (4832, 10000) on v5e. Scatter grads and counts separately; the
-        # pallas kernel amortizes its per-row loop over the many lane tiles
-        # of a wide row, so this is where it beats XLA hardest.
-        if backend == "pallas":
-            from skge_tpu.ops.pallas_segment import (
-                fits_in_vmem, segment_sum_pallas,
-            )
-
-            if flat.dtype == jnp.float32 and fits_in_vmem(
-                num_rows, flat.shape[1], chunk=1024
-            ):
-                # smaller chunks keep the (chunk, tile) input buffers lean
-                # so the column tile — which amortizes the per-row loop —
-                # can stay wide
-                gsum = segment_sum_pallas(
-                    indices, flat, num_rows, chunk=1024
-                ).reshape((num_rows,) + feat_shape)
-            else:
-                gsum = jnp.zeros(
-                    (num_rows, flat.shape[1]), g.dtype
-                ).at[indices].add(flat, mode="drop").reshape(
-                    (num_rows,) + feat_shape
-                )
-        elif (
-            flat.dtype == jnp.float32
-            and num_rows * t * 2 <= 64 * 1024 * 1024
-        ):
+        # channel would copy the whole (T, F) block into a (T, F+1) concat,
+        # which costs more than the second scatter it saves. Scatter grads
+        # and counts separately.
+        if flat.dtype == jnp.float32 and num_rows * t * 2 <= 64 * 1024 * 1024:
             # small destination table (e.g. TransR's (n_r, d, d) projection
-            # tables): ONE whole-table one-hot MXU matmul with the exact
-            # 3-term bf16 mantissa split — measured 2.8x over the XLA row
-            # scatter at the FB15k TransR shape, where that scatter was the
-            # hottest op in the whole train step (13.2 of 43 ms). Default
-            # for every backend here; 'pallas' was handled above.
+            # tables): ONE whole-table one-hot matmul with the exact 3-term
+            # bf16 mantissa split
             from skge_tpu.ops.sorted_segment import segment_sum_onehot
 
-            gsum = segment_sum_onehot(indices, flat, num_rows).reshape(
-                (num_rows,) + feat_shape
-            )
-        elif backend == "sorted" and flat.dtype == jnp.float32:
+            gsum = segment_sum_onehot(indices, flat, num_rows)
+        elif sorted_ok:
             from skge_tpu.ops.sorted_segment import segment_sum_sorted
 
             # wide rows triple via the 3-term mantissa split, so shrink the
@@ -236,47 +188,26 @@ def segment_mean_dense(
             gsum = segment_sum_sorted(
                 indices, flat, num_rows, chunk=512,
                 band=min(512, max(1, num_rows)),
-            ).reshape((num_rows,) + feat_shape)
-        else:
-            gsum = jnp.zeros(
-                (num_rows, flat.shape[1]), g.dtype
-            ).at[indices].add(flat, mode="drop").reshape(
-                (num_rows,) + feat_shape
             )
+        else:
+            gsum = jnp.zeros((num_rows, flat.shape[1]), g.dtype).at[
+                indices
+            ].add(flat, mode="drop")
+        gsum = gsum.reshape((num_rows,) + feat_shape)
         count = jnp.zeros((num_rows,), g.dtype).at[indices].add(
             mask.astype(g.dtype), mode="drop"
         )
         gavg = gsum / _bmask(jnp.maximum(count, 1.0), gsum.ndim)
         return DenseGrads(grads=gavg, count=count)
     aug = jnp.concatenate([flat, mask.astype(g.dtype)[:, None]], axis=1)
-    if backend == "pallas":
-        from skge_tpu.ops.pallas_segment import fits_in_vmem, segment_sum_pallas
-
-        if aug.dtype == jnp.float32 and fits_in_vmem(num_rows, aug.shape[1]):
-            table = segment_sum_pallas(indices, aug, num_rows)
-        else:
-            table = jnp.zeros((num_rows, aug.shape[1]), g.dtype).at[
-                indices
-            ].add(aug, mode="drop")
-    elif backend == "sorted":
-        # sort + banded one-hot MXU matmul (ops/sorted_segment.py): beats
-        # the XLA scatter ~1.2x at FB15k shapes with BETTER precision
-        # (pure fp32 band trees), pure XLA ops — no pallas required.
-        # fp32-only; other dtypes (fp64 parity runs) take the XLA scatter.
+    if sorted_ok:
         from skge_tpu.ops.sorted_segment import segment_sum_sorted
 
-        if aug.dtype == jnp.float32:
-            table = segment_sum_sorted(indices, aug, num_rows)
-        else:
-            table = jnp.zeros((num_rows, aug.shape[1]), g.dtype).at[
-                indices
-            ].add(aug, mode="drop")
-    elif backend == "xla":
+        table = segment_sum_sorted(indices, aug, num_rows)
+    else:
         table = jnp.zeros((num_rows, aug.shape[1]), g.dtype).at[indices].add(
             aug, mode="drop"
         )
-    else:
-        raise ValueError(f"unknown segment backend {backend!r}")
     count = table[:, -1]
     gsum = table[:, :-1].reshape((num_rows,) + feat_shape)
     gavg = gsum / _bmask(jnp.maximum(count, 1.0), gsum.ndim)

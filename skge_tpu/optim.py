@@ -1,4 +1,4 @@
-"""Sparse row optimizers — the skge/param.py equivalent, TPU-native.
+"""Sparse row optimizers — the skge/param.py equivalent, in JAX.
 
 Reference semantics (skge/param.py, SURVEY.md §2.1 #2):
 
@@ -8,7 +8,7 @@ Reference semantics (skge/param.py, SURVEY.md §2.1 #2):
 - Post-constraint (~110): ``normless1`` renormalizes ONLY the touched rows
   whose L2 norm exceeds 1, applied after the update.
 
-TPU design: instead of in-place NumPy fancy-index mutation, updates are
+Design: instead of in-place NumPy fancy-index mutation, updates are
 functional gather -> compute -> scatter over the unique touched rows produced
 by `skge_tpu.ops.aggregate`. Rows whose occurrence count is zero (padding,
 or touched only by non-violating pairs) are written back unchanged and the

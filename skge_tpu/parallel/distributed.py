@@ -10,11 +10,10 @@ GLOBAL device list. What multi-host adds is purely host-side plumbing,
 and that is what this module provides:
 
 - `initialize()` — idempotent bootstrap around
-  `jax.distributed.initialize`, env-var driven (`SKGE_COORDINATOR`,
-  `SKGE_NUM_PROCESSES`, `SKGE_PROCESS_ID`, falling back to JAX's own
-  auto-detection on real pods where the TPU runtime publishes topology).
-  On CPU it rides JAX's Gloo cross-process collectives; on TPU pods the
-  same call wires ICI/DCN.
+  `jax.distributed.initialize`, driven by explicit arguments or the
+  `SKGE_COORDINATOR` / `SKGE_NUM_PROCESSES` / `SKGE_PROCESS_ID` env vars.
+  On CPU it rides JAX's Gloo cross-process collectives; on GPUs the same
+  call wires NCCL.
 - `local_shard_ids(mesh)` — which rows of a ('shard',)-sharded leading
   axis this process's devices own (mesh order == global device order,
   processes contiguous).
@@ -67,11 +66,10 @@ def initialize(
 ) -> bool:
     """Bootstrap multi-process JAX. Returns True if distributed mode is on.
 
-    Priority: explicit args > SKGE_* env vars > JAX auto-detection (real
-    TPU pods publish topology; there the bare `jax.distributed.initialize()`
-    suffices). With no configuration at all this is a no-op and the
-    process stays single-host — every code path still works on the local
-    mesh. Idempotent: a second call returns the current mode.
+    Priority: explicit args > SKGE_* env vars. With no configuration at
+    all this is a no-op and the process stays single-host — every code
+    path still works on the local mesh. Idempotent: a second call returns
+    the current mode.
     """
     global _initialized
     if _initialized:
@@ -87,26 +85,13 @@ def initialize(
         int(os.environ[_ENV_PID]) if _ENV_PID in os.environ else None
     )
     if coord is None and nproc is None and pid is None:
-        in_pod = any(
-            v in os.environ for v in ("MEGASCALE_COORDINATOR_ADDRESS",
-                                      "CLOUD_TPU_TASK_ID")
-        )
-        if not in_pod:
-            return False  # single-host; nothing to wire
-        try:
-            jax.distributed.initialize()  # pod runtime auto-detects
-        except (ValueError, RuntimeError):
-            # looked pod-like (stray env vars — e.g. single-chip images
-            # set TPU_WORKER_HOSTNAMES) but the runtime has no topology:
-            # stay single-host rather than crash
-            return False
-    else:
-        jax.distributed.initialize(
-            coordinator_address=coord,
-            num_processes=nproc,
-            process_id=pid,
-            local_device_ids=local_device_ids,
-        )
+        return False  # single-host; nothing to wire
+    jax.distributed.initialize(
+        coordinator_address=coord,
+        num_processes=nproc,
+        process_id=pid,
+        local_device_ids=local_device_ids,
+    )
     _initialized = True
     return jax.process_count() > 1
 

@@ -6,7 +6,7 @@ Parallelism layout (SURVEY.md §2.3 / §5 "long-context equivalent"):
 - axis 'model' — entity-table rows: the entity dimension is this domain's
   long axis (up to millions of rows), so `E` (and its AdaGrad accumulator)
   is row-sharded across 'model'. Gathers of remote rows and the scatter-add
-  of their gradients become XLA collectives over ICI; relation tables are
+  of their gradients become XLA collectives over the interconnect; relation tables are
   replicated and their gradients psum-ed implicitly by SPMD.
 
 Everything is expressed once as NamedSharding; `jax.jit` inserts the

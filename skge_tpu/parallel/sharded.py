@@ -5,7 +5,7 @@ aggregation mode changes to 'dense' (full-table averaged gradients), which
 keeps every per-parameter array sharded exactly like the parameter itself:
 the scatter-add of batch gradients into the row-sharded entity table and the
 implicit psum of replicated relation-table gradients are inserted by GSPMD
-as ICI collectives. `with_sharding_constraint` pins the gradient tables to
+as collectives. `with_sharding_constraint` pins the gradient tables to
 the parameter layout so XLA cannot materialize a replicated copy.
 
 Single-device parity is tested on an 8-way virtual CPU mesh
@@ -71,7 +71,7 @@ def make_sharded_pairwise_step(
         key, sk = jax.random.split(state.key)
         if shared:
             # pool ids are replicated; pool scoring against the row-sharded
-            # entity table inserts an all-gather of K pool rows over ICI,
+            # entity table inserts an all-gather of K pool rows over the interconnect,
             # and pool-row gradients psum back — both O(K*d), independent
             # of batch size
             pool_idx = sampler.pool(sk, batch, mask)

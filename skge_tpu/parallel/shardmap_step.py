@@ -21,10 +21,11 @@ writes the SPMD program by hand over the ('data', 'model') mesh:
 - relation tables replicated; their gradient tables psum over 'data'.
 - losses/violation counts psum over 'data'.
 
-This is the TPU-native analogue of the reference-scale plan in SURVEY.md
+This is the SPMD form of the reference-scale plan in SURVEY.md
 section 5 ("row-sharding E across hosts ... gradients exchanged and
-overlapped"): collectives ride ICI, every tensor keeps a static shape, and
-a (1, 1) mesh degenerates to the single-chip program bit-for-bit (tested).
+overlapped"): collectives ride the interconnect, every tensor keeps a
+static shape, and a (1, 1) mesh degenerates to the single-device program
+bit-for-bit (tested).
 
 Requires n_entities divisible by the 'model' axis size (pad the entity
 count up if needed — embedding row count is free).
@@ -148,10 +149,9 @@ def _apply_row_occurrences(model, opt, state, new_params, new_opt, occ,
         if isinstance(entry, FactoredOcc):
             # factored rank-2 W cotangents (RESCAL dispatch): under SPMD
             # the sanctioned aggregation is the XLA fallback of
-            # `segment_outer_mean_dense` — materialize the outers inside
-            # ONE fused scatter-add (the pallas VMEM kernel owns a whole
-            # table and is single-device). Counts/averaging semantics are
-            # identical to the 3-tuple path below.
+            # `segment_outer_mean_dense` — the outers feed ONE fused
+            # scatter-add. Counts/averaging semantics are identical to the
+            # 3-tuple path below.
             idx = entry.idx
             grads = sum(
                 u[:, :, None] * v[:, None, :]
@@ -633,9 +633,8 @@ def make_shardmap_ce_step(
 ):
     """Vocab-parallel full-cross-entropy step (Megatron-style softmax).
 
-    The TPU-native way to train 1-vs-all at entity counts beyond one
-    chip: E is row-sharded over 'model', each shard scores every positive
-    against ONLY its (n_e/M, d) candidate block — a local MXU matmul —
+    The way to train 1-vs-all at entity counts beyond one device: E is row-sharded over 'model', each shard scores every positive
+    against ONLY its (n_e/M, d) candidate block — a local matmul —
     and the softmax is assembled with three scalar-per-row collectives:
 
         m    = max(all_gather_model(rowmax(local logits)))

@@ -3,7 +3,7 @@
 Provides the reference's names (SURVEY.md §2.1 #2): `Parameter` (ndarray
 subclass carrying an init + post-constraint), `ParameterUpdate`, `SGD`,
 `AdaGrad`, init fns `normal` / `nunif`, constraint `normless1`. These NumPy
-classes make the compat API complete and usable standalone; the TPU training
+classes make the compat API complete and usable standalone; the JAX training
 path uses `skge_tpu.optim` instead.
 """
 

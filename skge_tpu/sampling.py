@@ -15,7 +15,7 @@ mode 1 = object in the (s, o, p) column convention; one negative per
   tph/(tph+hpt) (Wang et al. 2014, TransH) — a BASELINE.json build-scope
   capability with no verified reference counterpart (SURVEY.md §0).
 
-TPU design: all samplers are pure (key, positives, mask) -> (positives
+Design: all samplers are pure (key, positives, mask) -> (positives
 repeated, negatives, pair_mask) functions with static shapes. The LCWA
 rejection loop becomes a fixed-width vectorized draw of `ntries` candidates
 with a sorted-key binary-search membership test — no host round-trips, no
@@ -218,11 +218,11 @@ class SharedNegativeSampler:
     """Shared negative pool: K entities drawn ONCE per step, ranked against
     EVERY positive in the batch (for each mode in `modes`).
 
-    This is the TPU-native production scheme (batched/shared negative
+    This is the production scheme (batched/shared negative
     sampling as in DGL-KE, arXiv:2004.08532 §3.1 "negative sampling with
     batched matrix operations", and PyTorch-BigGraph — build-scope, no
     reference counterpart): pool scoring becomes a
-    (B, d) x (d, K) MXU matmul for dot-style models, and the gradient scatter
+    (B, d) x (d, K) matmul for dot-style models, and the gradient scatter
     shrinks from O(B * n_negatives) corrupted rows to the K pool rows plus
     the batch's base rows. Like `RandomModeSampler`, no false-negative
     filtering is applied (the reference's uniform sampler has none either);

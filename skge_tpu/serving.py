@@ -9,7 +9,7 @@ entities, exactly, with known-true triples filtered out.
 
 Three engines, one scoring contract:
 
-- `LinkPredictor` — in-HBM, single device: one MXU matmul per batch via
+- `LinkPredictor` — in-HBM, single device: one matmul per batch via
   `KGEModel.score_pool` against the full entity table, `lax.top_k`, all
   inside a single jitted kernel per (batch_size, k, filter_width) shape.
 - `LinkPredictor(mesh=...)` — candidate-sharded SPMD: the entity table is
@@ -87,9 +87,8 @@ def quantize_table_fp8(table) -> Dict[str, np.ndarray]:
     steps than int8. KGE retrieval ranks by a SUM over coordinates —
     absolute, not relative, error is what perturbs it — so int8 should
     win recall at equal bytes; the measured table in RESULTS.md confirms
-    it (v5e also has no native fp8 MXU path, so there is no throughput
-    rebate either; the sweep dequantizes to fp32 like int8's). Kept as a
-    supported mode because the equal-bytes comparison is the evidence.
+    it (the sweep dequantizes to fp32 like int8's). Kept as a supported
+    mode because the equal-bytes comparison is the evidence.
     """
     import ml_dtypes
 

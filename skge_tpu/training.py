@@ -188,9 +188,8 @@ def pairwise_grads_fused(
         cnt(corrupted entity of c) = m_c
 
     where m_c is pair c's violation mask. Scatter sizes drop 2x for entity
-    tables and 2|modes|x for relation tables versus the generic path
-    (scatters dominate TPU step time). Verified exactly against the oracle
-    in tests/test_fused.py.
+    tables and 2|modes|x for relation tables versus the generic path.
+    Verified exactly against the oracle in tests/test_fused.py.
     """
     s, o, p = pos[:, 0], pos[:, 1], pos[:, 2]
     b = pos.shape[0]
@@ -207,10 +206,9 @@ def pairwise_grads_fused(
     slot_by_role = {role: (slot, pname) for slot, pname, role in model.slot_spec()}
     role_of_mode = {0: "s", 1: "o"}
 
-    # ONE fused gather for all corruption rows (gathers are row-rate-limited
-    # on TPU with a per-op fixed cost; |modes| separate gathers would pay it
-    # |modes| times). All corruptions target the entity table in every model
-    # here (subject/object roles share one param).
+    # ONE fused gather for all corruption rows instead of |modes| separate
+    # gathers. All corruptions target the entity table in every model here
+    # (subject/object roles share one param).
     cparam = slot_by_role["s"][1]
     assert cparam == slot_by_role["o"][1], "fused path assumes shared entity table"
     all_repl = jnp.concatenate([repl for _, repl, _ in corruptions])
@@ -304,8 +302,8 @@ def pairwise_grads_shared(
         cnt(pool_k) = sum_b fm_o[b,k] + fm_s[b,k]
 
     The gradient scatter shrinks from O(B*K) corrupted rows (iid corruption)
-    to 3B base rows + K pool rows, and pool scoring is an MXU matmul for
-    dot-style models — the scatter was 80% of the iid step time on TPU.
+    to 3B base rows + K pool rows, and pool scoring is one matmul for
+    dot-style models.
     """
     s, o, p = pos[:, 0], pos[:, 1], pos[:, 2]
     if gather is None:
@@ -393,10 +391,8 @@ def pairwise_grads_shared_bilinear(
         =>  dL/dW_{p_b} = e_s (x) dL/dq_b  +  dL/dr_b (x) e_o
 
     so W's occurrence gradients are returned as a `FactoredOcc` of (u, v)
-    factor pairs and scattered by `segment_outer_mean_dense` (pallas VMEM
-    kernel on TPU). At FB15k shapes this removes ~390 MB/step of HBM
-    traffic (the autodiff path writes the (B, d, d) outer products in the
-    backward pass and immediately re-reads them in the scatter).
+    factor pairs and scattered by `segment_outer_mean_dense`, so the
+    autodiff path's (B, d, d) per-pair outer products never exist.
 
     The reference computes these same aggregated outer products per unique
     relation in skge/rescal.py `_pairwise_gradients` (~90); here the
@@ -654,7 +650,7 @@ def ce_grads_all(
 
     No reference counterpart (build-scope): the training scheme of the
     ConvE / ComplEx-N3 era. Each positive is scored against EVERY entity
-    in the corrupted role — one (B, d) x (d, n_e) MXU matmul per
+    in the corrupted role — one (B, d) x (d, n_e) matmul per
     direction via the model's `score_all_o`/`score_all_s` eval kernels —
     and the loss is the softmax cross entropy with the true entity as
     the label:
@@ -739,7 +735,7 @@ def sampled_ce_grads_shared(
     Gradients are plain autodiff SUMS of the mean-over-valid loss — use
     `apply_gradients(..., premasked=True, combine='sum')` so duplicate
     occurrences add instead of averaging (the k=n_e identity needs sum
-    semantics). Compute is O(B*K*d) MXU work vs full CE's O(B*n_e*d);
+    semantics). Compute is O(B*K*d) matmul work vs full CE's O(B*n_e*d);
     the update touches only batch + pool rows.
 
     `n_domain` overrides the candidate-domain size used for the default
@@ -949,7 +945,7 @@ def apply_gradients(
     opt_state: OptState,
     occ,                      # {pname: (indices, grads, mask_or_counts)}
     g_dense: Params,
-    aggregate: str = "unique",  # 'unique'|'dense' (SPMD)|'dense_pallas'|'dense_sorted'
+    aggregate: str = "unique",  # 'unique' | 'dense' (SPMD) | 'dense_sorted'
     premasked: bool = False,    # occ grads pre-weighted, mask = counts
     step=None,                  # traced global step (lr schedules)
     combine: str = "mean",      # 'mean' (reference duplicate-averaging) |
@@ -962,14 +958,9 @@ def apply_gradients(
     reg = model.regularization
     reg3 = model.regularization_n3
     backend = "xla"
-    if aggregate == "dense_pallas":
-        # single-device fast path: the scatter-add runs in the VMEM-resident
-        # pallas kernel (ops/pallas_segment.py)
-        aggregate, backend = "dense", "pallas"
-    elif aggregate == "dense_sorted":
-        # pure-XLA fast path: sort + banded one-hot MXU matmul
-        # (ops/sorted_segment.py) — no pallas, better-than-scatter fp32
-        # precision, ~1.2x over the XLA scatter at FB15k shapes
+    if aggregate == "dense_sorted":
+        # sort + banded one-hot matmul (ops/sorted_segment.py) instead of
+        # XLA's scatter; better-than-scatter fp32 precision
         aggregate, backend = "dense", "sorted"
     seg_dense = partial(segment_mean_dense, backend=backend)
 
@@ -996,8 +987,8 @@ def apply_gradients(
         )
 
     # factored rank-1 entries (RESCAL W): dense aggregation via the outer-
-    # product scatter (pallas on TPU); the unique path materializes the
-    # outers batch-locally (CPU/test sizes only).
+    # product scatter; the unique path materializes the outers batch-locally
+    # (CPU/test sizes only).
     factored = {
         p: f for p, f in occ.items() if isinstance(f, FactoredOcc)
     }
@@ -1006,9 +997,7 @@ def apply_gradients(
         if aggregate == "dense":
             apply_dense_grads(
                 pname,
-                segment_outer_mean_dense(
-                    f, model.num_rows(pname), backend=backend
-                ),
+                segment_outer_mean_dense(f, model.num_rows(pname)),
             )
         else:
             outers = sum(
@@ -1040,9 +1029,9 @@ def apply_gradients(
                 model.post_constraints.get(pname), step=step,
             )
     elif aggregate == "dense":
-        # XLA scatter carries a large FIXED cost per op on TPU, so row
-        # params with identical feature shape (e.g. TransE/HolE's E and R)
-        # share ONE fused scatter into a stacked virtual table, split after.
+        # row params with identical feature shape (e.g. TransE/HolE's E and
+        # R) share ONE fused scatter into a stacked virtual table, split
+        # after, so each step pays one scatter's fixed cost, not several.
         groups: dict = {}
         for pname in occ:
             groups.setdefault(occ[pname][1].shape[1:], []).append(pname)
@@ -1269,7 +1258,7 @@ def make_ce_step(
     """One full-cross-entropy (1-vs-all) step: (state, batch, mask) -> ...
 
     No sampler: the "negatives" are all n_entities candidates, scored by
-    the same MXU all-entity kernels evaluation uses. The optimizer runs
+    the same all-entity matmul kernels evaluation uses. The optimizer runs
     the dense full-table path — correct because CE's entity gradient is
     dense (every row appears in the partition function) and a zero
     gradient row is an exact AdaGrad/SGD no-op. `rparam` regularization

@@ -2,7 +2,7 @@
 
 These are the NumPy/SciPy helpers a scikit-kge user expects to find
 (SURVEY.md §2.1 #4): `cconv`, `ccorr`, `grad_sum_matrix`, `unzip_triples`,
-`to_tensor`, `init_nvecs`. The TPU compute path uses the JAX versions in
+`to_tensor`, `init_nvecs`. The JAX compute path uses the JAX versions in
 `skge_tpu.ops`; these exist for API parity, host-side preprocessing, and
 spectral initialization.
 """

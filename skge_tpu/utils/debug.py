@@ -1,6 +1,6 @@
 """Runtime sanitizers — SURVEY.md §5 'race detection / sanitizers' mapping.
 
-The reference is single-threaded NumPy and has nothing here; the TPU build's
+The reference is single-threaded NumPy and has nothing here; this build's
 equivalents are jittable runtime checks, off by default (they cost a few
 percent and block donation), enabled per call site:
 

@@ -4,7 +4,7 @@ The reference exposes only `trainer.loss` / `trainer.nviolations` to
 callbacks plus stdlib logging in the harness. Here every epoch emits a
 structured record (loss, violations, wall time, triples/s) to an in-memory
 history and optionally a JSONL file; `jax.profiler` trace hooks are exposed
-for on-TPU profiling.
+for on-device profiling.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """NumPy oracle encoding the reference semantics of scikit-kge.
 
 `/root/reference` was an EMPTY mount at survey time (SURVEY.md section 0), so
-this module is the executable parity target for the TPU framework: it
+this module is the executable parity target for the JAX framework: it
 re-derives, in plain NumPy and from the documented behavior in SURVEY.md
 sections 2-3, the math of the upstream `skge` package (mnick/scikit-kge, of
 which unmeshvrije/scikit-kge is a fork). It is written from the survey's
@@ -301,7 +301,7 @@ class RESCALOracle:
     """skge/rescal.py: score = e_s^T W_p e_o, W is (n_r, d, d).
 
     Pairwise uses raw scores ([M] -- SURVEY.md documents sigmoid only for
-    HolE; the TPU framework mirrors this oracle's choice).
+    HolE; the JAX framework mirrors this oracle's choice).
     """
 
     def __init__(self, E, W, rparam=0.0, margin=1.0):
@@ -365,7 +365,7 @@ class ERMLPOracle:
     """skge/ermlp.py: score = C . af(W^T [e_s; e_o; r_p]).
 
     W is (3*d, nhidden), C is (nhidden,). Param names/concat order are [M]
-    (SURVEY.md section 2.1 #9); the TPU framework mirrors this oracle. Dense
+    (SURVEY.md section 2.1 #9); the JAX framework mirrors this oracle. Dense
     params W, C receive the masked MEAN gradient over the batch ([M] choice,
     consistent with the row-averaging semantics elsewhere). No rparam.
     """

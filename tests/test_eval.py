@@ -262,7 +262,7 @@ def test_rank_kernel_cache_reuses_compiled_kernels():
     """Fresh FilteredRankingEval instances over equal model values share
     the jitted kernels (the sweep/early-stopping loops build one evaluator
     per validation pass; recompiling 2 kernels each time dominated the
-    suite's wall clock on the remote TPU)."""
+    suite's wall clock)."""
     from skge_tpu.evaluation import _rank_kernel
     from skge_tpu.models import TransE
 

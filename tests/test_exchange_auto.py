@@ -1,19 +1,19 @@
-"""Boundary-exchange auto-selection (VERDICT r2 item 8): the calibrated
-cost model picks dense+overlap while compute can hide the bytes and ragged
-when the cap outgrows it, and PartitionedTrainer(exchange=...) wires each
-choice through to a working train step (CPU: ragged runs as the
-bit-identical dense emulation)."""
+"""Boundary-exchange selection: PartitionedTrainer(exchange=...) takes
+'dense' or 'ragged'; 'ragged' runs the real ragged_all_to_all except on
+the CPU, whose XLA has no lowering for it, where the bit-identical dense
+emulation runs instead."""
 
 import numpy as np
+import pytest
 
 import jax
-import jax.numpy as jnp
 
 from skge_tpu import AdaGrad, TransE
+from skge_tpu.parallel import partitioned
 from skge_tpu.parallel.partitioned import (
     SHARD_AXIS,
     PartitionedTrainer,
-    choose_exchange,
+    ragged_mode,
 )
 from jax.sharding import Mesh
 
@@ -22,149 +22,12 @@ def _mesh():
     return Mesh(np.asarray(jax.devices()[:8]), (SHARD_AXIS,))
 
 
-def test_cost_model_crossover():
-    # small cap + small pool: compute hides the dense bytes entirely
-    # (matches the compiled-evidence sweep row d=64 C=256: dense)
-    c, r = choose_exchange(d=64, cap=256, k=512, batch_per_shard=2048, p=8)
-    assert c == "dense", r
-    assert r["exposed_dense_cycles"] == 0
-    # big cap: P-fold fewer bytes beats what compute can hide
-    # (sweep row d=64 C=2048: ragged)
-    c, r = choose_exchange(d=64, cap=2048, k=512, batch_per_shard=2048, p=8)
-    assert c == "ragged", r
-    assert r["exposed_ragged_cycles"] < r["exposed_dense_cycles"]
-    # huge pool: the P*(C+k) gradient return dominates — ragged wins even
-    # at a tiny cap
-    c, r = choose_exchange(d=128, cap=256, k=8192, batch_per_shard=2048, p=8)
-    assert c == "ragged", r
-    # monotone in (clamped) cap
-    prev = 0.0
-    for cap in (256, 512, 1024, 2048):
-        _, r = choose_exchange(d=64, cap=cap, k=512,
-                               batch_per_shard=2048, p=8)
-        assert r["exposed_dense_cycles"] >= prev
-        prev = r["exposed_dense_cycles"]
-    # cap clamps to the per-shard batch: beyond it the decision is constant
-    _, r1 = choose_exchange(d=64, cap=4096, k=512, batch_per_shard=2048, p=8)
-    _, r2 = choose_exchange(d=64, cap=65536, k=512, batch_per_shard=2048, p=8)
-    assert r1 == r2
-
-
-def test_cost_model_sampled_ce_modes():
-    """Sampled-CE calibration rows (VERDICT r3 item 7): byte terms are
-    loss-invariant (pinned against compiled HLO below), so the sampled-CE
-    extension is the n_modes axis — the reciprocal protocol scores ONE
-    pool direction, halving the hideable compute and moving the
-    dense->ragged crossover to smaller caps."""
-    # same bytes, less hiding: reciprocal (n_modes=1) exposes >= bidirectional
-    _, r2 = choose_exchange(d=64, cap=1024, k=8192,
-                            batch_per_shard=2048, p=8, n_modes=2)
-    _, r1 = choose_exchange(d=64, cap=1024, k=8192,
-                            batch_per_shard=2048, p=8, n_modes=1)
-    assert r1["dense_bytes"] == r2["dense_bytes"]
-    assert r1["ragged_bytes"] == r2["ragged_bytes"]
-    assert r1["hideable_compute_cycles"] <= r2["hideable_compute_cycles"]
-    assert r1["exposed_dense_cycles"] >= r2["exposed_dense_cycles"]
-    assert r1["n_modes"] == 1 and r2["n_modes"] == 2
-    # a config where the mode count flips the decision: hiding covers the
-    # dense bytes at n_modes=2 but not at n_modes=1 (reciprocal sampled-CE)
-    c2, _ = choose_exchange(d=32, cap=256, k=512,
-                            batch_per_shard=1024, p=8, n_modes=2)
-    c1, _ = choose_exchange(d=32, cap=256, k=512,
-                            batch_per_shard=1024, p=8, n_modes=1)
-    assert (c2, c1) == ("dense", "ragged")
-
-
-def test_cost_model_calibration_vs_compiled():
-    """The byte model vs the actual compiled collective inventory, and the
-    loss-invariance claim: pairwise and sampled-CE partitioned steps
-    compile to byte-identical collectives at the same (d, C, k) — the
-    calibration fact that lets one byte equation serve every cap-based
-    loss. AOT TPU HLO (compile-only; skipped where the TPU compiler is
-    unavailable)."""
-    import pytest
-
-    sys_path_added = False
-    import os
-    import sys as _sys
-
-    sdir = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "scripts")
-    if sdir not in _sys.path:
-        _sys.path.insert(0, sdir)
-        sys_path_added = True
-    try:
-        from inspect_overlap import build_step
-        from skge_tpu.utils.hloparse import analyze
-
-        d, cap, k, L, p = 128, 512, 2048, 2048, 8
-        totals = {}
-        for loss in ("margin", "sampled_ce"):
-            try:
-                compiled = build_step(cap, overlap=True, ragged=False,
-                                      loss=loss, d=d, k=k, L=L)
-            except Exception as e:  # no TPU compiler in this env
-                pytest.skip(f"AOT TPU topology unavailable: {e}")
-            recs, sync = analyze(compiled.as_text())
-            totals[loss] = sum(r["bytes"] for r in recs) + sum(
-                r["bytes"] for r in sync
-            )
-        assert totals["margin"] == totals["sampled_ce"], totals
-        _, rep = choose_exchange(d=d, cap=cap, k=k, batch_per_shard=L, p=p)
-        # model bytes (wire-cycle calibrated: 2x psum, no id/count cols)
-        # track the compiled output-buffer inventory within 15%
-        ratio = rep["dense_bytes"] / totals["margin"]
-        assert 0.85 < ratio < 1.15, (rep["dense_bytes"], totals)
-    finally:
-        if sys_path_added:
-            _sys.path.remove(sdir)
-
-
 def _toy(n_e=4000, n_r=8, n=6000, seed=0):
     rng = np.random.default_rng(seed)
     return np.stack([
         rng.integers(0, n_e, n), rng.integers(0, n_e, n),
         rng.integers(0, n_r, n),
     ], axis=1).astype(np.int32)
-
-
-def test_trainer_auto_records_choice_and_trains():
-    triples = _toy()
-    model = TransE(4000, 8, 16)
-    tr = PartitionedTrainer(
-        model, AdaGrad(lr=0.1), triples, _mesh(), k=64, nbatches=10,
-        exchange="auto",
-    )
-    rep = tr.stats["exchange"]
-    assert rep["choice"] in ("dense", "ragged")
-    tr.fit(1)
-    assert np.isfinite(tr.metrics[-1]["loss"])
-
-
-def test_trainer_auto_sampled_ce_records_modes():
-    """exchange='auto' under loss='sampled_ce' feeds the direction count
-    into the cost model and stamps (loss, n_modes) into the stats."""
-    triples = _toy()
-    tr = PartitionedTrainer(
-        TransE(4000, 8, 16), AdaGrad(lr=0.1), triples, _mesh(), k=64,
-        nbatches=10, loss="sampled_ce", exchange="auto",
-    )
-    rep = tr.stats["exchange"]
-    assert rep["loss"] == "sampled_ce" and rep["n_modes"] == 2
-    tr.fit(1)
-    assert np.isfinite(tr.metrics[-1]["loss"])
-
-    from skge_tpu.data import Dataset, add_reciprocal_relations
-
-    aug = add_reciprocal_relations(Dataset(
-        train=triples, valid=triples[:0], test=triples[:0],
-        n_entities=4000, n_relations=8,
-    ))
-    tr = PartitionedTrainer(
-        TransE(4000, 16, 16), AdaGrad(lr=0.1), aug.train, _mesh(), k=64,
-        nbatches=10, loss="sampled_ce", reciprocal=True, exchange="auto",
-    )
-    assert tr.stats["exchange"]["n_modes"] == 1
 
 
 def test_trainer_exchange_modes_agree():
@@ -188,10 +51,43 @@ def test_trainer_exchange_modes_agree():
 
 
 def test_exchange_and_legacy_ragged_are_exclusive():
-    import pytest
-
     with pytest.raises(ValueError):
         PartitionedTrainer(
             TransE(4000, 8, 16), AdaGrad(lr=0.1), _toy(), _mesh(),
             k=64, nbatches=10, exchange="dense", ragged="emulate",
         )
+
+
+@pytest.mark.parametrize("mode", ["auto", "emulate", "bogus"])
+def test_unknown_exchange_modes_raise(mode):
+    """Only 'dense' and 'ragged' remain; the cost-model 'auto' is gone."""
+    with pytest.raises(ValueError, match="unknown exchange mode"):
+        PartitionedTrainer(
+            TransE(4000, 8, 16), AdaGrad(lr=0.1), _toy(), _mesh(),
+            k=64, nbatches=10, exchange=mode,
+        )
+
+
+@pytest.mark.parametrize("platform,want", [
+    ("cpu", "emulate"), ("gpu", True), ("cuda", True),
+])
+def test_ragged_mode_per_platform(platform, want):
+    assert ragged_mode(platform) == want
+
+
+def test_trainer_ragged_on_cpu_takes_emulation(monkeypatch):
+    """exchange='ragged' asks `ragged_mode` with the mesh's platform and
+    hands its answer to the epoch builder."""
+    seen = {}
+    build = partitioned.make_partitioned_epoch
+
+    def spy(*args, **kw):
+        seen["ragged"] = kw["ragged"]
+        return build(*args, **kw)
+
+    monkeypatch.setattr(partitioned, "make_partitioned_epoch", spy)
+    PartitionedTrainer(
+        TransE(4000, 8, 16), AdaGrad(lr=0.1), _toy(), _mesh(),
+        k=64, nbatches=10, exchange="ragged",
+    )
+    assert seen["ragged"] == "emulate"

@@ -1,4 +1,4 @@
-"""Factored RESCAL shared-pool gradients + pallas outer-product scatter.
+"""Factored RESCAL shared-pool gradients + the outer-product scatter.
 
 `pairwise_grads_shared_bilinear` (training.py) hand-derives RESCAL's W
 cotangent in rank-1 factored form; it must be EXACTLY the reference math
@@ -215,79 +215,3 @@ def test_factored_pointwise_matches_oracle(aggregate):
             np.asarray(new_ost[k]["p2"]), want_p2[k], rtol=1e-9, atol=1e-11,
             err_msg=f"p2 {k}",
         )
-
-
-@pytest.mark.parametrize("rank", [1, 2])
-def test_outer_kernel_interpret_matches_xla(rank):
-    from skge_tpu.ops.pallas_outer import segment_outer_sum_pallas
-
-    rng = np.random.default_rng(0)
-    t, d, r = 2048, 36, 17
-    idx = rng.integers(0, r + 3, t).astype(np.int32)  # some dropped
-    us = tuple(
-        rng.standard_normal((t, d)).astype(np.float32) for _ in range(rank)
-    )
-    vs = tuple(
-        rng.standard_normal((t, d)).astype(np.float32) for _ in range(rank)
-    )
-    want = np.zeros((r, d, d), np.float32)
-    for i in range(t):
-        if idx[i] < r:
-            for u, v in zip(us, vs):
-                want[idx[i]] += np.outer(u[i], v[i])
-    got = segment_outer_sum_pallas(
-        jnp.asarray(idx),
-        tuple(map(jnp.asarray, us)),
-        tuple(map(jnp.asarray, vs)),
-        r,
-        interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-5, atol=2e-4)
-
-
-def test_outer_kernel_lane_tile_smaller_than_width():
-    """Regression: when VMEM pressure selects a lane tile that does not
-    divide the padded feature width (d=300 -> dv=384, tile=256 at
-    num_rows=200), the grid must still cover every output column."""
-    from skge_tpu.ops import pallas_outer
-    from skge_tpu.ops.pallas_outer import segment_outer_sum_pallas
-
-    t, d, r = 1024, 300, 200
-    d_sub = -(-d // 8) * 8
-    tile = pallas_outer._tile_v(r, d_sub, 384, 1024, rank=1)
-    assert 0 < tile < 384, f"test setup must force a partial tile, got {tile}"
-
-    rng = np.random.default_rng(1)
-    idx = rng.integers(0, r, t).astype(np.int32)
-    u = rng.standard_normal((t, d)).astype(np.float32)
-    v = rng.standard_normal((t, d)).astype(np.float32)
-    got = segment_outer_sum_pallas(
-        jnp.asarray(idx), (jnp.asarray(u),), (jnp.asarray(v),), r,
-        interpret=True,
-    )
-    want = np.zeros((r, d, d), np.float32)
-    for i in range(t):
-        want[idx[i]] += np.outer(u[i], v[i])
-    assert np.isfinite(np.asarray(got)).all()
-    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-4, atol=2e-3)
-
-
-def test_outer_kernel_drops_negative_indices():
-    """Negative indices must be dropped — NOT wrapped to the table tail the
-    way NumPy-style `.at[]` indexing would, and not written out of bounds."""
-    from skge_tpu.ops.pallas_outer import segment_outer_sum_pallas
-
-    rng = np.random.default_rng(2)
-    t, d, r = 1024, 16, 11
-    idx = rng.integers(-3, r, t).astype(np.int32)  # some negative
-    u = rng.standard_normal((t, d)).astype(np.float32)
-    v = rng.standard_normal((t, d)).astype(np.float32)
-    got = segment_outer_sum_pallas(
-        jnp.asarray(idx), (jnp.asarray(u),), (jnp.asarray(v),), r,
-        interpret=True,
-    )
-    want = np.zeros((r, d, d), np.float32)
-    for i in range(t):
-        if 0 <= idx[i] < r:
-            want[idx[i]] += np.outer(u[i], v[i])
-    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-5, atol=2e-4)

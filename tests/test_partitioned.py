@@ -379,8 +379,8 @@ def test_ragged_exchange_emulation_matches_dense():
     states as the dense all_to_all exchange. CPU XLA lacks the
     ragged-all-to-all op, so this pins the full offset/permutation
     bookkeeping through `ragged='emulate'` (identical math, rows placed at
-    their ragged output offsets inside a dense frame); the real op is
-    compile-checked for TPU by scripts/inspect_overlap.py --ragged."""
+    their ragged output offsets inside a dense frame); chip_smoke.py
+    --multi checks the real op against the dense exchange on GPUs."""
     from skge_tpu.parallel.partitioned import object_boundary_cap
 
     if len(jax.devices()) < P_PARTS:

@@ -77,7 +77,7 @@ def test_rescal_trains_at_reference_config():
 # family (RESCAL/DistMult/TuckER), rotational for RotatE — trained with its
 # native scheme (self-adversarial shared pool, the strongest measured loss).
 # Random filtered MRR at 2000 entities is ~0.004; thresholds sit >= 10x
-# above it and ~35% below the measured values (TPU sweep, RESULTS.md), so
+# above it and ~35% below the measured values (quality sweep, RESULTS.md), so
 # they trip on real regressions, not run-to-run noise.
 # ---------------------------------------------------------------------------
 

@@ -136,7 +136,7 @@ def test_shared_pool_generalizes_on_latent_kg():
     """Quality gate for the flagship shared-negative scheme: on a genuinely
     learnable KG (latent translational geometry), held-out filtered MRR of
     shared-pool training must be in the same range as iid corruption at the
-    same epoch budget (on TPU at production scale the shared scheme matched
+    same epoch budget (at production scale, RESULTS.md, the shared scheme matched
     or beat iid: 0.138 vs 0.128 L1 / 0.217 vs 0.202 L2 MRR at 60 epochs)."""
     from skge_tpu import SharedNegativeSampler
     from skge_tpu.data import latent_kg
@@ -166,7 +166,7 @@ def test_shared_pool_generalizes_on_latent_kg():
 
 
 def test_bf16_compute_dtype_scores_close_and_trains(ds):
-    """compute_dtype='bfloat16' (opt-in MXU mode): pool scores within bf16
+    """compute_dtype='bfloat16' (opt-in bf16 mode): pool scores within bf16
     tolerance of the fp32 path, parameters stay fp32, training converges."""
     from skge_tpu import SharedNegativeSampler
 

@@ -3,7 +3,7 @@ per-triple projection form (`sweep='direct'`), forward AND gradient, on both
 the single-chunk (shared-pool) and multi-chunk (all-entity eval) shapes.
 
 The quadratic sweep (models/transr.py `_sweep_quadratic`) expands
--||q - Me||^2 into two large MXU matmuls — exact algebra, so fp64 agreement
+-||q - Me||^2 into two large matmuls — exact algebra, so fp64 agreement
 to ~1e-12 is the contract (VERDICT round-2 item 5: >=5x over the direct
 form at the FB15k bench shape with fp64 parity; measured speedup recorded
 in RESULTS.md)."""
